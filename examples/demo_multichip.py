@@ -12,8 +12,8 @@ forces an N-device CPU mesh (the same mechanism the driver's
 - mesh-wide masked percentiles (psum histograms),
 - rows-sharded fused GLT+orthowarp.
 
-On real hardware the same code runs unchanged over ICI-connected TPU
-chips — only the mesh construction differs.
+On real hardware the same code runs unchanged over GPUs joined by
+NVLink — only the mesh construction differs.
 """
 
 import sys

@@ -1,10 +1,10 @@
-"""hyperres — TPU-native EMIT x Sentinel-2 hyperspectral super-resolution.
+"""hyperres — EMIT x Sentinel-2 hyperspectral super-resolution in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 ``martasumyk/hyperspectral_super-resolution``: GLT orthorectification,
 SRF band synthesis, OT/polynomial fusion, ridge spectral super-resolution,
 FFT phase-correlation coregistration, paired tiling, catalog search and
-run artifacts — with the compute path on TPU and a self-contained host
+run artifacts — with the compute path on the GPU and a self-contained host
 runtime (own CRS math and GeoTIFF/ENVI/HDF5 codecs).
 """
 

@@ -31,16 +31,16 @@ class OrthoConfig:
     # intermediate); False falls back to the two-step gather+warp
     fused_orthowarp: bool = True
     orthowarp_row_chunks: int = 64      # HBM peak control for the tap loop
-    # "two_pass": Catmull-Smith scanline warp as two MXU banded matmuls
-    # (~2.6x faster than the tap-loop gathers; sub-1e-3 deviation at
-    # nodata boundaries only — see kernels.warp.orthowarp_two_pass).
+    # "two_pass": Catmull-Smith scanline warp as two banded matmuls
+    # (sub-1e-3 deviation at nodata boundaries only — see
+    # kernels.warp.orthowarp_two_pass).
     # "taploop": per-tap gathers, bit-identical to the two-step
     # gather+2D-cubic semantics the reference's gdalwarp implements.
     warp_kernel: str = "two_pass"
-    # two-pass einsum backend: "auto" upgrades to the banded
-    # block-sparse Pallas kernels on TPU when the warp geometry fits
-    # their 384-sample windows (bit-level parity, ~26% faster full
-    # pipeline measured round 3); "xla" forces the dense einsums
+    # two-pass backend (kernels.warp.select_warp_backend): "auto" takes
+    # the banded windowed contraction when the warp geometry fits its
+    # 384-sample windows and the dense one otherwise; "banded" and
+    # "dense" force one
     warp_backend: str = "auto"
     resampling: str = "cubic"           # emit_proj.py:924 (-r cubic)
     write_xml: bool = True              # emit_proj.py:571

@@ -5,9 +5,8 @@ shared stretch + OT/poly fit -> 10 m upsample + apply; demo notebook
 cell 81 == s2_emit/poly_regression.py:97-172) as separate NumPy stages.
 Round 1 of this framework kept that stage structure with host
 round-trips between phases; the benchmark showed that folding the whole
-thing into ONE jitted XLA program is orders of magnitude faster on TPU
-(XLA manages all intermediate liveness, nothing crosses PCIe between
-phases).
+thing into ONE jitted XLA program removes every host round trip between
+phases (XLA manages all intermediate liveness, nothing crosses PCIe).
 
 This module makes that single program the *library* path:
 
@@ -55,9 +54,9 @@ from ..kernels.srf import (
 from ..kernels.stats import shared_percentile_stretch
 from ..kernels.warp import (
     orthowarp_taploop, orthowarp_two_pass, scanline_cstar,
-    separable_fast_spec, separable_index_axes, separable_resample_fast,
-    separable_resample_matmul, separable_weight_matrix,
-    source_index_field,
+    select_warp_backend, separable_fast_spec, separable_index_axes,
+    separable_resample_fast, separable_resample_matmul,
+    separable_weight_matrix, source_index_field,
 )
 from .sampling import sample_valid_pixels_device
 
@@ -94,8 +93,8 @@ class FusionStatics:
     up_fast: Optional[tuple] = None
     # phase-4 upsample/apply array layout: "cminor" keeps (H, W, C)
     # throughout; "cmajor" runs the upsample + epilogue channel-major
-    # (C, H, W) via separable_resample_fast_cmajor so the 85 Mpx
-    # elementwise work gets full VPU lanes, transposing once at the end
+    # (C, H, W) via separable_resample_fast_cmajor, transposing once at
+    # the end
     up_layout: str = "cminor"
 
 
@@ -106,8 +105,12 @@ class WarpStatics:
     warp_kernel: str     # "two_pass" | "taploop"
     resampling: str      # "cubic" | "bilinear"
     row_chunks: int
-    backend: str = "auto"  # two-pass einsum backend: "auto"/"xla"/"pallas"
-    banded_group: Optional[int] = None  # pallas_banded window-sharing group
+    # banded window-sharing group of the two-pass warp; None: dense
+    banded_group: Optional[int] = None
+
+    @property
+    def backend(self) -> str:
+        return "dense" if self.banded_group is None else "banded"
 
 
 def _affine_fit_weighted(X: jax.Array, Y: jax.Array,
@@ -145,7 +148,7 @@ def _phase2_s2_60(st: FusionStatics, s2rgb10_hwb, Wr60, Wc60):
 def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
                  Wc60, Wr10, Wc10, key) -> Dict:
     """Traced body of the 4 fusion phases (fuse_pair semantics)."""
-    # Phase 1: SRF band synthesis (B2, B3, B4 at 60 m) — MXU matmul
+    # Phase 1: SRF band synthesis (B2, B3, B4 at 60 m) — one matmul
     synth = srf_synthesize(cube_hwb, Wsrf, fast=True)
     valid60 = (jnp.isfinite(synth).all(axis=-1)
                & (synth[..., 0] > 0)
@@ -155,10 +158,9 @@ def _fusion_core(st: FusionStatics, cube_hwb, s2rgb10_hwb, Wsrf, Wr60,
     valid60 = valid60 & jnp.isfinite(s2_60).all(axis=-1)
     n_valid = jnp.sum(valid60)
     # Phase 3: shared stretch (display order B4,B3,B2) + fit.
-    # NOTE: the stretch lo/hi are deliberately NOT exported — adding
-    # them as program outputs measured +30 ms on the 0.38 s full-scale
-    # program (TPU v5e, round 4); accuracy audits recompute them
-    # bit-identically in the separate _audit_target_program instead.
+    # NOTE: the stretch lo/hi are deliberately NOT exported from the
+    # timed program; accuracy audits recompute them bit-identically in
+    # the separate _audit_target_program instead.
     emit_n = shared_percentile_stretch(synth[..., ::-1], valid60,
                                        st.pmin, st.pmax)
     s2_n = shared_percentile_stretch(s2_60[..., ::-1], valid60,
@@ -327,7 +329,7 @@ def _orthofusion_program(st: FusionStatics, warp: WarpStatics, raw_hwb,
         utm_cube = orthowarp_two_pass(
             raw_hwb, flat_idx, valid, wr, wc, cstar,
             method=warp.resampling, fill=NO_DATA_VALUE,
-            backend=warp.backend, banded_group=warp.banded_group)
+            banded_group=warp.banded_group)
     else:
         utm_cube = orthowarp_taploop(
             raw_hwb, flat_idx, valid, wr, wc, method=warp.resampling,
@@ -451,13 +453,10 @@ class FusedFusionPlan:
                 f"fusion_method {fusion_method!r} has no fused program "
                 f"(supported: {FUSED_METHODS})")
         if up_layout == "auto":
-            # channel-major phase 2/4 measured 0.344 s vs 0.377 s
-            # end-to-end at full scale on TPU v5e (round 4, identical
-            # accuracy) — the 85 Mpx elementwise epilogue gets full VPU
-            # lanes; parity pinned by test_up_layout_cmajor_matches_
-            # cminor. CPU keeps the (H, W, C) layout.
-            up_layout = ("cmajor" if jax.default_backend() == "tpu"
-                         else "cminor")
+            # (H, W, C) throughout; the channel-major variant is kept for
+            # an A/B on the card (parity pinned by
+            # test_up_layout_cmajor_matches_cminor)
+            up_layout = "cminor"
         self.emit_grid = emit_grid
         self.s2_grid = s2_grid
         self.fusion_method = fusion_method
@@ -559,42 +558,19 @@ class FusedOrthoFusionPlan:
         wr, wc = source_index_field(ortho_grid, utm_grid)
         self._wr = jnp.asarray(wr)
         self._wc = jnp.asarray(wc)
-        # "pallas" selects the two-pass scanline decomposition with the
-        # Pallas VMEM-weight einsum backend; "pallas_banded" the
-        # block-sparse window kernels (feasibility host-checked here);
-        # "auto" picks pallas_banded on TPU when the geometry allows
-        # (measured 0.482 s vs 0.652 s full-plan e2e, round 3) and the
-        # XLA two-pass otherwise
-        backend = "auto"
-        if warp_kernel == "pallas":
-            warp_kernel, backend = "two_pass", "pallas"
+        # warp_kernel: "auto" (banded two-pass where the geometry allows,
+        # dense two-pass otherwise), "banded", "two_pass" (dense) or
+        # "taploop"
         cstar_np = (scanline_cstar(wr, wc, ortho_grid.height)
-                    if warp_kernel in ("two_pass", "pallas_banded",
-                                       "auto")
+                    if warp_kernel in ("two_pass", "auto", "banded")
                     else None)
         banded_group = None
-        if warp_kernel == "auto":
-            from ..kernels.pallas_ops import select_banded_group
+        if warp_kernel in ("auto", "banded"):
+            _, banded_group = select_warp_backend(cstar_np, wr, warp_kernel)
             warp_kernel = "two_pass"
-            if jax.default_backend() == "tpu":
-                banded_group = select_banded_group(np.asarray(cstar_np),
-                                                   np.asarray(wr).T)
-                if banded_group is not None:
-                    backend = "pallas_banded"
-        elif warp_kernel == "pallas_banded":
-            from ..kernels.pallas_ops import select_banded_group
-            banded_group = select_banded_group(np.asarray(cstar_np),
-                                               np.asarray(wr).T)
-            if banded_group is None:
-                raise ValueError(
-                    "banded Pallas warp infeasible for this geometry "
-                    "(a destination tile's source span exceeds the "
-                    "384-sample window); use warp_kernel='two_pass'")
-            warp_kernel, backend = "two_pass", "pallas_banded"
         self.warp_statics = WarpStatics(
             warp_kernel=warp_kernel, resampling=resampling,
-            row_chunks=orthowarp_row_chunks, backend=backend,
-            banded_group=banded_group)
+            row_chunks=orthowarp_row_chunks, banded_group=banded_group)
         self._cstar = (jnp.asarray(cstar_np) if cstar_np is not None
                        else jnp.zeros((1, 1), jnp.float32))
         self._fusion = FusedFusionPlan(
@@ -620,19 +596,20 @@ class FusedOrthoFusionPlan:
                                              s2_rgb10_hwb)
 
     def precompile(self, raw_shape_hwb, s2_shape_hw3,
-                   audit: bool = True) -> None:
+                   audit: bool = True):
         """AOT-compile the full program (and optionally the accuracy
         audit target) from SHAPES alone — no granule bytes, no HBM
         allocation. Needs only the plan's host-precomputed matrices, so
         it can run on a background thread CONCURRENTLY with the input
         ingest stream (cold-start wall = max(compile, ingest) instead
-        of their sum; BENCHMARK.md "cold start"). Compiles go through
+        of their sum). Compiles go through
         the persistent compilation cache, so a warm repeat process
         pays only the executable load. Subsequent ``__call__`` /
         ``s2_reference_10m`` with matching shapes dispatch to the AOT
         executables (same math, same statics — and one stable cache
         key across processes instead of the dispatch path's
-        layout-sensitive variant)."""
+        layout-sensitive variant). Returns the compiled main program
+        (for ``memory_analysis()`` and the like)."""
         f = self._fusion
         raw_sds = jax.ShapeDtypeStruct(tuple(raw_shape_hwb), jnp.float32)
         s2_sds = jax.ShapeDtypeStruct(tuple(s2_shape_hw3), jnp.float32)
@@ -652,6 +629,7 @@ class FusedOrthoFusionPlan:
                 f.statics, utm_sds, s2_sds, f._Wsrf, f._Wr60, f._Wc60,
                 f._Wr10, f._Wc10).compile()
             f._compiled_audit_shapes = (utm_sds.shape, tuple(s2_shape_hw3))
+        return self._compiled
 
     def __call__(self, raw_hwb, s2_rgb10_hwb, key=None) -> Dict:
         if key is None:

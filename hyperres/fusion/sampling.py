@@ -41,24 +41,11 @@ def sample_valid_pixels_device(
     mask: jax.Array,
     n_samples: int,
     key: jax.Array,
-    method: str = "auto",
 ) -> Tuple[jax.Array, jax.Array]:
     """Fixed-shape device sampling: returns (sample (n_samples, C),
     weights (n_samples,)) where weights are 0 for slots beyond the number
-    of valid pixels. Gumbel-top-k gives a uniform sample without
-    replacement among valid pixels.
-
-    ``method``: "exact" uses ``lax.top_k``; "approx" uses TPU's
-    ``lax.approx_max_k`` (hardware bucketed top-k). "auto" picks approx
-    on TPU. The exact path is uniform without replacement. The approx
-    path is NEARLY uniform but not exactly: the bucketed selection rule
-    is not permutation-symmetric — a valid pixel's selection probability
-    depends on how many other valid pixels share its hardware bucket, so
-    pixels in sparse-valid regions (swath edges) are slightly
-    overrepresented. The bias is bounded by the recall target of the
-    bucketing (~5% by default) and is negligible for the OT/stretch fit
-    sample this feeds; pass method="exact" where exact uniformity
-    matters."""
+    of valid pixels. Gumbel-top-k (exact ``lax.top_k``) gives a uniform
+    sample without replacement among valid pixels."""
     c = img.shape[-1]
     flat = img.reshape(-1, c)
     # images smaller than the sample budget: take every pixel (the
@@ -67,13 +54,7 @@ def sample_valid_pixels_device(
     valid = (mask.reshape(-1) & jnp.isfinite(flat).all(axis=-1))
     g = jax.random.gumbel(key, (flat.shape[0],))
     score = jnp.where(valid, g, -jnp.inf)
-    if method == "auto":
-        method = ("approx" if jax.default_backend() == "tpu"
-                  else "exact")
-    if method == "approx":
-        _, idx = jax.lax.approx_max_k(score, n_samples)
-    else:
-        _, idx = jax.lax.top_k(score, n_samples)
+    _, idx = jax.lax.top_k(score, n_samples)
     take = jnp.take(flat, idx, axis=0)
     w = jnp.take(valid, idx).astype(jnp.float32)
     n_valid = jnp.sum(valid)

@@ -1,6 +1,6 @@
 """Double-buffered host -> device input pipeline.
 
-The TPU-shaped successor of the reference's chunked streaming (the
+The device-side successor of the reference's chunked streaming (the
 32-band HDF5 chunk loop emit_proj.py:969-987 and the sequential tile
 reads tiles_helpers/utils.py:266-301): a background thread stages the
 next host batch (file read + decode) while the device consumes the

@@ -7,7 +7,7 @@ one vectorized XLA op over the HBM-resident cube: GLT -> flat row indices
 once, a single ``take`` along the flattened raw-pixel axis (the spectral
 axis stays minor, so each gather row is a contiguous 285-float read), and
 a ``where`` for the nodata fill. No band chunking: chunking was a host-RAM
-workaround, not a TPU constraint.
+workaround, not a device constraint.
 """
 
 from __future__ import annotations

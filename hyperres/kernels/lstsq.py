@@ -68,8 +68,7 @@ def polyval_channels_cmajor(coeffs: jax.Array, img_chw: jax.Array
                             ) -> jax.Array:
     """coeffs (C, deg+1), img (C, H, W) -> (C, H, W): the channel-major
     twin of :func:`polyval_channels` (Horner with per-channel
-    coefficients broadcast over the spatial minor axes — full VPU lanes
-    at 10 m granule scale)."""
+    coefficients broadcast over the spatial minor axes)."""
     c, k = coeffs.shape
     acc = jnp.broadcast_to(coeffs[:, 0][:, None, None], img_chw.shape)
     for i in range(1, k):
@@ -142,25 +141,6 @@ def poly_factor_indices(n_features: int, degree: int,
         fs.extend([0] * (degree - len(fs)))
         factor_idx[row] = fs
     return factor_idx
-
-
-def poly_selector_matrices(n_features: int, degree: int,
-                           include_bias: bool = False):
-    """One-hot factor-selection matrices for the monomial expansion:
-    ``S_d[j, m] = 1`` iff factor d of monomial m is column j of
-    [1, x_0, ..., x_{n-1}], so ``prod_d (X_ext @ S_d)`` equals the
-    gather-based expansion from :func:`make_poly_expander`. Returns
-    (tuple of (n_features+1, F) float32, F). These turn the expansion
-    into MXU matmuls — the form the fused Pallas SR-predict kernel
-    keeps resident in VMEM."""
-    factor_idx = poly_factor_indices(n_features, degree, include_bias)
-    f = factor_idx.shape[0]
-    mats = []
-    for d in range(degree):
-        S = np.zeros((n_features + 1, f), dtype=np.float32)
-        S[factor_idx[:, d], np.arange(f)] = 1.0
-        mats.append(S)
-    return tuple(mats), f
 
 
 def make_poly_expander(n_features: int, degree: int,

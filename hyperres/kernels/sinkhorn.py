@@ -4,7 +4,7 @@ Replaces POT's compiled ``ot.dist`` + ``ot.sinkhorn``
 (s2_emit/color.py:100-104, s2_emit/poly_regression.py:52-56) with a
 log-domain, fixed-shape implementation:
 
-- the cost matrix is a single MXU matmul (||x||^2 + ||y||^2 - 2 x.y),
+- the cost matrix is a single matmul (||x||^2 + ||y||^2 - 2 x.y),
 - iterations run in a ``lax.while_loop`` with the same stopping rule as
   POT (marginal violation < stop_thr, checked every 10 iterations, capped
   at num_itermax),
@@ -87,13 +87,12 @@ def barycentric_map(P: jax.Array, Y: jax.Array) -> jax.Array:
                    precision=jax.lax.Precision.HIGHEST) / row_sum
 
 
-@partial(jax.jit, static_argnames=("num_itermax", "engine", "debias"))
+@partial(jax.jit, static_argnames=("num_itermax", "debias"))
 def ot_barycentric_targets(X: jax.Array, Y: jax.Array, reg: float = 0.05,
                            num_itermax: int = 300,
                            stop_thr: float = 1e-6,
                            wx: jax.Array | None = None,
                            wy: jax.Array | None = None,
-                           engine: str = "auto",
                            debias: bool = False) -> jax.Array:
     """End-to-end: Sinkhorn between samples X (n, d) and Y (m, d), then
     barycentric targets for each X row (the shared core of ot_match_rgb /
@@ -102,19 +101,6 @@ def ot_barycentric_targets(X: jax.Array, Y: jax.Array, reg: float = 0.05,
     get a vanishing mass (and their values are zeroed so non-finite
     padding cannot poison the cost matrix), keeping the plan equal to the
     uniform plan over the real samples to f32 accuracy.
-
-    ``engine``: "xla" (and "auto") runs :func:`sinkhorn_log`; "pallas"
-    runs every iteration inside one kernel with the cost matrix
-    VMEM-resident (:func:`~hyperres.kernels.pallas_ops.
-    pallas_sinkhorn_duals`, duals equal to f32 roundoff). Measured at
-    the production 5000^2 shape on v5e, XLA is NOT bandwidth-bound
-    as the 2-logsumexp-per-iteration structure suggests — it fuses to
-    ~one HBM pass per iteration (~133 us/iter, the elementwise
-    exp+reduce compute wall) and the VMEM-resident kernel lands at the
-    same wall from the other side (156 us/iter even with the column
-    sum reusing the row pass's exponentials), so "auto" keeps the XLA
-    path; the kernel remains for configurations where HBM is contended
-    (e.g. overlapped ingest).
 
     ``debias=True`` applies the Sinkhorn-divergence shrinkage
     correction: entropic OT's barycentric map contracts targets toward
@@ -139,23 +125,8 @@ def ot_barycentric_targets(X: jax.Array, Y: jax.Array, reg: float = 0.05,
         bw = jnp.maximum(wy.astype(jnp.float32), 1e-12)
         b = bw / jnp.sum(bw)
     M = sqeuclidean_cdist(X, Y)
-    use_pallas = False
-    if engine == "pallas":
-        from .pallas_ops import (
-            PALLAS_SINKHORN_VMEM_BUDGET, _round_up,
-        )
-        use_pallas = (_round_up(n, 128) * _round_up(m, 128) * 4
-                      <= PALLAS_SINKHORN_VMEM_BUDGET)
-    if use_pallas:
-        from .pallas_ops import pallas_sinkhorn_duals
-        Mr = -M / reg
-        f, g, _ = pallas_sinkhorn_duals(jnp.log(a), jnp.log(b), Mr,
-                                        num_itermax=num_itermax,
-                                        stop_thr=stop_thr)
-        P = jnp.exp(Mr + f[:, None] + g[None, :])
-    else:
-        P, _ = sinkhorn_log(a, b, M, reg, num_itermax=num_itermax,
-                            stop_thr=stop_thr)
+    P, _ = sinkhorn_log(a, b, M, reg, num_itermax=num_itermax,
+                        stop_thr=stop_thr)
     T_xy = barycentric_map(P, Y)
     if not debias:
         return T_xy

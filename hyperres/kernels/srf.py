@@ -109,12 +109,14 @@ def srf_synthesize(cube_hwb: jax.Array, weights_bs: jax.Array,
                    valid_mask: Optional[jax.Array] = None,
                    fill_value: float = NO_DATA_VALUE,
                    fast: bool = False) -> jax.Array:
-    """(H, W, B) x (B, S) -> (H, W, S) on the MXU. ``valid_mask`` (H, W)
-    optionally masks nodata pixels to ``fill_value``.
+    """(H, W, B) x (B, S) -> (H, W, S) as one matmul. ``valid_mask``
+    (H, W) optionally masks nodata pixels to ``fill_value``.
 
-    ``fast=False`` forces full f32 MXU precision (3-pass bf16) for parity
-    with the NumPy trapz oracle; ``fast=True`` uses the TPU's native bf16
-    multiply (~2e-3 relative) for throughput."""
+    ``fast=False`` forces full float32 products (``Precision.HIGHEST``)
+    for parity with the NumPy trapz oracle; ``fast=True`` uses
+    ``Precision.DEFAULT``, which on the GPU may run as TF32 (~1e-3
+    relative) — the fused programs' choice, since the synthesized bands
+    only feed the percentile stretch and the fit sample."""
     h, w, b = cube_hwb.shape
     flat = cube_hwb.reshape(-1, b)
     precision = (jax.lax.Precision.DEFAULT if fast

@@ -5,7 +5,7 @@ The reference shells out to gdalwarp for the ortho -> S2-anchored-UTM warp
 ``reproject`` for grid transfers (demo notebook cell 73: nearest /
 bilinear / average; Spectral_matching cell 3: bilinear).
 
-TPU-native design: the projection math runs on the host in float64 (CRS
+Device design: the projection math runs on the host in float64 (CRS
 series lose ~100 m in f32) producing a *fractional source pixel index
 field* — f32 is ample for indices — and the device does the purely local
 part: a vectorized gather + separable convolution over the source image,
@@ -22,10 +22,10 @@ Resampling kernels:
   S2 -> EMIT grid transfer, demo cell 73 / cell 81 phase 2), falling back
   to an area-weighted gather for non-integer ratios.
 
-Execution strategies (fastest first at granule scale, measured in
-docs/BENCHMARK.md): the two-pass scanline decomposition
-(``orthowarp_two_pass`` / ``warp_two_pass`` — banded-weight matmuls on
-the MXU, default), the fused tap-loop gathers (``orthowarp_taploop`` —
+Execution strategies: the two-pass scanline decomposition
+(``orthowarp_two_pass`` / ``warp_two_pass`` — banded-weight matmuls,
+default; its banded backend contracts each destination tile against one
+source window), the fused tap-loop gathers (``orthowarp_taploop`` —
 bit-exact 2D tensor-product kernel), and plain per-tap gathers
 (``warp_interpolate``) for small problems.
 """
@@ -139,8 +139,9 @@ def warp_nearest(img: jax.Array, rows: jax.Array, cols: jax.Array,
     return jnp.where(bad, jnp.asarray(fill, out.dtype), out)
 
 
+#: matmul precisions of the warps by name: "highest" keeps float32
+#: products; "default" lets the GPU round them to TF32 (quick-look only)
 _PRECISIONS = {"highest": jax.lax.Precision.HIGHEST,
-               "high": jax.lax.Precision.HIGH,
                "default": jax.lax.Precision.DEFAULT}
 
 
@@ -240,7 +241,7 @@ def block_average(img: jax.Array, factor: int,
 
 
 # ---------------------------------------------------------------------------
-# Separable resampling as matmuls (MXU path for same-CRS grid transfers)
+# Separable resampling as matmuls (same-CRS grid transfers)
 # ---------------------------------------------------------------------------
 
 def separable_weight_matrix(idx_1d: np.ndarray, src_size: int,
@@ -252,9 +253,8 @@ def separable_weight_matrix(idx_1d: np.ndarray, src_size: int,
     weights over ``scale`` source pixels — GDAL-average semantics for a
     downsample, demo cell 73). Out-of-range taps are dropped, so
     fully-outside rows are all-zero (detected downstream via the
-    weight-sum channel). Turning interpolation into a dense matmul puts
-    separable resampling on the MXU instead of the (slow on TPU)
-    row-gather path."""
+    weight-sum channel). Turning interpolation into a dense matmul
+    replaces the row-gather path with a matrix product."""
     idx = np.asarray(idx_1d, dtype=np.float64)
     dst = idx.shape[0]
     W = np.zeros((dst, src_size), dtype=np.float32)
@@ -344,7 +344,8 @@ def separable_resample_matmul(img: jax.Array, Wr: jax.Array, Wc: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# Separable resampling, integer-aligned fast paths (VPU, no weight matrices)
+# Separable resampling, integer-aligned fast paths (elementwise, no
+# weight matrices)
 # ---------------------------------------------------------------------------
 #
 # The dense (Dst, Src) weight matrices above are >97 % structural zeros
@@ -353,9 +354,9 @@ def separable_resample_matmul(img: jax.Array, Wr: jax.Array, Wc: jax.Array,
 # emit_proj.py:354-382) makes the 10 m <-> 60 m transfers EXACT
 # integer-ratio aligned operations. For those, the average downsample is
 # a pad + reshape + block-sum and the bilinear upsample is a
-# phase-cycled lerp of shifted slices — a few GB of VPU traffic instead
-# of ~1.8 TFLOP of dense MXU contractions plus ~220 MB of resident
-# weight matrices. ``separable_fast_spec`` detects the structure
+# phase-cycled lerp of shifted slices — a few GB of elementwise traffic
+# instead of ~1.8 TFLOP of dense matrix products plus ~220 MB of
+# resident weight matrices. ``separable_fast_spec`` detects the structure
 # host-side and returns a small hashable spec; ``separable_resample_fast``
 # reproduces ``separable_resample_matmul``'s nodata/renormalisation
 # semantics exactly (dropped out-of-range taps == zero padding; fill
@@ -497,8 +498,8 @@ def _fast_pass_2d(arr: jax.Array, spec, axis: int) -> jax.Array:
     block-sum (average) and phase-cycled slice lerps (bilinear), but
     with no trailing channel axis. Run under ``jax.vmap`` over a
     LEADING channel axis for channel-major (C, H, W) pipelines: every
-    elementwise op then has the W axis minor (full VPU lanes) instead
-    of a 3-wide channel axis."""
+    elementwise op then has the W axis minor instead of a 3-wide
+    channel axis."""
     kind, f = spec[0], spec[1]
     size = arr.shape[axis]
     if kind == "avg":
@@ -545,11 +546,11 @@ def separable_resample_fast_cmajor(img_chw: jax.Array, spec_r, spec_c,
                                    valid_mask: Optional[jax.Array] = None
                                    ) -> jax.Array:
     """Channel-major (C, H, W) twin of :func:`separable_resample_fast`
-    (same nodata-excluded renormalisation; NaN/other fill). Exists
-    because at 10 m granule scale the channel-minor (H, W, 3) layout
-    leaves 125/128 VPU lanes idle on every elementwise op of the
-    upsample epilogue; here channels ride a vmapped leading axis and W
-    stays minor."""
+    (same nodata-excluded renormalisation; NaN/other fill): channels
+    ride a vmapped leading axis and W stays minor, instead of the
+    3-wide channel axis being minor in every elementwise op of the
+    upsample epilogue. Not the default (``up_layout="cminor"``); the
+    A/B on the GPU is open."""
     img_chw = img_chw.astype(jnp.float32)
     two = lambda x: _fast_pass_2d(_fast_pass_2d(x, spec_r, 0),
                                   spec_c, 1)
@@ -586,8 +587,9 @@ def separable_resample_fast(img: jax.Array, spec_r, spec_c,
                             ) -> jax.Array:
     """Integer-aligned equivalent of ``separable_resample_matmul``:
     identical nodata-excluded renormalisation, computed as pad/reshape
-    block sums (average) and phase-cycled slice lerps (bilinear) on the
-    VPU. Exact in f32 (the matmul path's DEFAULT precision is bf16)."""
+    block sums (average) and phase-cycled slice lerps (bilinear).
+    Exact in f32 (the matmul path's DEFAULT precision may round its
+    products to TF32 on the GPU)."""
     img = img.astype(jnp.float32)
 
     def passes(arr):
@@ -649,7 +651,7 @@ def warp_interpolate_taploop(img: jax.Array, rows: jax.Array,
     """Memory-bounded variant of ``warp_interpolate`` for deep cubes: a
     sequential ``fori_loop`` over the filter taps (16 for cubic, 4 for
     bilinear). Each iteration gathers the *full-width* spectral rows
-    (285 x 4 B = 1.1 KB contiguous per row — an efficient TPU gather,
+    (285 x 4 B = 1.1 KB contiguous per row — a wide, efficient gather,
     unlike narrow band-chunk rows) and accumulates; only one tap
     temporary is live at a time, so peak HBM stays ~3 cubes instead of
     ~16."""
@@ -832,8 +834,7 @@ def _kernel_profile(dist: jax.Array, method: str) -> jax.Array:
 
 @partial(jax.jit,
          static_argnames=("method", "fill", "block_rows_src",
-                          "block_rows_dst", "precision", "backend",
-                          "banded_group"))
+                          "block_rows_dst", "precision", "banded_group"))
 def orthowarp_two_pass(raw: jax.Array, glt_flat_idx: jax.Array,
                        glt_valid: jax.Array, rows: jax.Array,
                        cols: jax.Array, cstar: jax.Array,
@@ -841,10 +842,9 @@ def orthowarp_two_pass(raw: jax.Array, glt_flat_idx: jax.Array,
                        fill: float = NO_DATA_VALUE,
                        block_rows_src: int = 64,
                        block_rows_dst: int = 64,
-                       precision: str = "high",
-                       backend: str = "auto",
-                       banded_group: "int | None" = None) -> jax.Array:
-    """Two-pass (Catmull-Smith scanline) fused GLT + warp on the MXU.
+                       precision: str = "highest",
+                       banded_group: Optional[int] = None) -> jax.Array:
+    """Two-pass (Catmull-Smith scanline) fused GLT + warp as matmuls.
 
     ``orthowarp_taploop`` is gather-transaction-bound: 16 cubic taps x one
     HBM row transaction per destination pixel. This variant replaces the
@@ -863,18 +863,25 @@ def orthowarp_two_pass(raw: jax.Array, glt_flat_idx: jax.Array,
     aligned one, so values differ from ``orthowarp_taploop`` by
     O(shear^2) — sub-1e-3 reflectance for EMIT-scale meridian convergence
     (see tests). Use the taploop for bit parity with gdalwarp semantics;
-    use this for speed (the matmuls run at MXU rates instead of gather
-    rates).
+    use this for speed (dense matmuls instead of per-tap gathers).
 
-    ``precision``: "high" (default, 3-pass bf16 — measured max 4.5e-5
-    off the f32 result at granule scale, below the uint16 product
-    quantization step of 1e-4, 12% faster), "highest" (full f32), or
-    "default" (1-pass bf16, ~6e-3 error — quick-look only).
+    ``banded_group``: None contracts every destination sample against
+    the full source axis (:func:`_two_pass_core`); a group (the second
+    value :func:`select_warp_backend` returns, after its host feasibility
+    check) contracts each destination tile against one 384-sample source
+    window (:func:`banded_two_pass` — the same taps, ~4x fewer
+    multiply-adds at granule geometry). ``block_rows_src`` source rows
+    (pass 1) and ``block_rows_dst`` destination rows (dense pass 2) or
+    columns (banded pass 2) are contracted per loop step in either form.
+
+    ``precision``: "highest" (default: full float32 products — on the
+    GPU, lower precisions may run as TF32, whose ~1e-3 relative error is
+    above the 1e-4 step of the u16 reflectance product) or "default"
+    (quick-look only).
     """
     b = raw.shape[-1]
     raw_flat = raw.reshape(-1, b)
     ho, wo = glt_flat_idx.shape
-    hd, wd = rows.shape
     prec = _PRECISIONS[precision]
 
     # GLT materialisation (1 gather) + validity channel
@@ -883,42 +890,10 @@ def orthowarp_two_pass(raw: jax.Array, glt_flat_idx: jax.Array,
     valid = glt_valid.astype(jnp.float32)[..., None]
     src_ext = jnp.concatenate([v * valid, valid], axis=-1)
 
-    if backend == "auto":
-        # Measured on TPU v5e at full granule scale: the Pallas kernel
-        # wins STANDALONE (0.44 s vs 0.52 s — weight tiles stay in
-        # VMEM), but inside a fused pipeline XLA overlaps its einsums
-        # with neighbouring stages and runs the passes at 3-pass-bf16
-        # HIGH precision, beating the opaque custom call end-to-end
-        # (0.44 s vs 0.53 s). Default to XLA; pass backend="pallas"
-        # for standalone warps.
-        backend = "xla"
-    if backend == "pallas":
-        # weight tiles generated in VMEM, never materialised in HBM
-        from .pallas_ops import pallas_scanline_resample
-        h = pallas_scanline_resample(src_ext, cstar, method=method,
-                                     precision=precision)
-        h_t = jnp.transpose(h, (1, 0, 2))           # (Wd, Ho, C)
-        outT = pallas_scanline_resample(h_t, jnp.transpose(rows),
-                                        method=method,
-                                        precision=precision)
-        out_ext = jnp.transpose(outT, (1, 0, 2))    # (Hd, Wd, C)
-    elif backend == "pallas_banded":
-        # block-sparse scanline kernels: each destination tile
-        # contracts a scalar-prefetch-selected windowed source span
-        # (~4-6x fewer FLOPs than the dense banded matmuls at granule
-        # geometry) and pass 2 reads pass 1's natural layout — no
-        # multi-GB transposes. Feasibility (tile spans within the
-        # window) must be host-checked with pallas_ops.banded_spans_ok.
-        # The validity renormalisation stays OUTSIDE the kernel: a
-        # fused pass-2 epilogue was measured 140 ms SLOWER end-to-end
-        # (0.496 vs 0.353 s) — the lane-unaligned c=286 slice/divide
-        # per row block costs Mosaic far more than the one XLA
-        # elementwise HBM round trip it saves.
-        from .pallas_ops import pallas_banded_two_pass
-        out_ext = pallas_banded_two_pass(src_ext, rows, cstar,
-                                         method=method,
-                                         precision=precision,
-                                         group=banded_group)
+    if banded_group is not None:
+        out_ext = banded_two_pass(src_ext, rows, cstar, method, precision,
+                                  banded_group, block_rows_src=block_rows_src,
+                                  block_rows_dst=block_rows_dst)
     else:
         out_ext = _two_pass_core(src_ext, rows, cstar, method,
                                  block_rows_src, block_rows_dst, prec)
@@ -1001,6 +976,234 @@ def _two_pass_core(src_ext: jax.Array, rows: jax.Array, cstar: jax.Array,
     return _two_pass_pass2(h_t, rows, method, block_rows_dst, prec)
 
 
+# ---------------------------------------------------------------------------
+# Banded two-pass warp: each destination tile contracts one source window
+# ---------------------------------------------------------------------------
+#
+# The dense passes above multiply banded weight matrices whose support is
+# ~4 taps wide against the FULL source axis (~1500 samples at granule
+# scale). The banded form gathers, for each tile of BANDED_DTILE
+# destination samples shared by ``group`` scanlines (pass 1) or columns
+# (pass 2), one window of BANDED_NBLK x BANDED_WBLK source samples that
+# starts on a BANDED_WBLK boundary; builds that tile's (BANDED_DTILE,
+# window) weights elementwise; and contracts all tiles of a row (column)
+# block with one batched dot_general. Pass 2 consumes pass 1's
+# (scanline, column, channel) layout directly, so no full-size transpose
+# of the intermediate is needed. The 128-sample tile and block sizes
+# were inherited from the (8, 128) tiling of the accelerator this warp
+# was first written for, and are untuned on the GPU.
+
+BANDED_WBLK = 128      # window start granularity (source samples)
+BANDED_NBLK = 3        # window = 3 blocks = 384 samples
+BANDED_DTILE = 128     # destination samples per tile
+#: window-sharing group sizes tried by :func:`select_banded_group`,
+#: largest first: a larger group gathers longer contiguous runs of the
+#: pass-1 intermediate in pass 2
+BANDED_GROUP_CANDIDATES = (32, 16, 8, 4)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def banded_spans_ok(pos: np.ndarray, group: int = 8,
+                    nblk: int = BANDED_NBLK,
+                    dtile: int = BANDED_DTILE) -> bool:
+    """HOST feasibility check for :func:`banded_two_pass`: every
+    (``group`` leading rows x ``dtile`` destination samples) block of the
+    position field ``pos`` (R, D) must span at most the window minus one
+    block of start-rounding slack minus the cubic support (251 samples
+    at the default 3 x 128 window). True for near-1:1 scanline warps
+    (the EMIT ortho->UTM case); False for strong down/upsampling, where
+    the dense path applies. Blocks whose span exceeds the window would
+    lose taps and come out as nodata, not garbage."""
+    pos = np.asarray(pos, dtype=np.float64)
+    if pos.ndim == 1:
+        pos = pos[None, :]
+    r, d = pos.shape
+    g = max(1, int(group))
+    max_span = nblk * BANDED_WBLK - BANDED_WBLK - 5
+    r_pad, d_pad = _round_up(r, g), _round_up(d, dtile)
+    padded = np.full((r_pad, d_pad), np.nan)
+    padded[:r, :d] = pos
+    t = padded.reshape(r_pad // g, g, d_pad // dtile, dtile)
+    with np.errstate(invalid="ignore"):
+        span = np.nanmax(t, (1, 3)) - np.nanmin(t, (1, 3))
+    return bool(np.nanmax(np.nan_to_num(span)) <= float(max_span))
+
+
+def select_banded_group(cstar: np.ndarray, rows_t: np.ndarray,
+                        candidates=BANDED_GROUP_CANDIDATES
+                        ) -> Optional[int]:
+    """HOST-side choice of the largest window-sharing group at which
+    both passes are feasible (:func:`banded_spans_ok`): ``cstar`` is the
+    pass-1 (Ho, Wd) position field, ``rows_t`` the pass-2 (Wd, Hd)
+    transposed row field. None when no candidate fits (strong
+    down/upsampling or sharply curved scanlines)."""
+    for g in candidates:
+        if banded_spans_ok(cstar, group=g) and banded_spans_ok(rows_t,
+                                                               group=g):
+            return int(g)
+    return None
+
+
+def select_warp_backend(cstar: np.ndarray, rows: np.ndarray,
+                        backend: str = "auto"
+                        ) -> Tuple[str, Optional[int]]:
+    """The one choice of two-pass warp backend, from the warp geometry
+    alone: returns ``(backend, banded_group)``, and ``banded_group`` is
+    what :func:`orthowarp_two_pass` takes (None: dense). This is the one
+    place a backend name is read. "auto" takes the banded path wherever
+    it is feasible and the dense path otherwise; "banded" raises on
+    infeasible geometry instead of silently losing taps; "dense" is
+    always possible."""
+    if backend == "dense":
+        return "dense", None
+    if backend not in ("auto", "banded"):
+        raise ValueError(f"Unknown warp backend {backend!r} "
+                         "(expected 'auto', 'banded' or 'dense')")
+    group = select_banded_group(np.asarray(cstar), np.asarray(rows).T)
+    if group is not None:
+        return "banded", group
+    if backend == "banded":
+        raise ValueError(
+            "banded warp infeasible for this geometry (a destination "
+            "tile's source span exceeds the 384-sample window); use the "
+            "dense backend")
+    return "dense", None
+
+
+def _banded_starts(pos: jax.Array, group: int, nblk: int, dtile: int,
+                   s_pad: int) -> jax.Array:
+    """(R, D) positions -> (R / group, D / dtile) int32 first source
+    sample of each block's window: the lowest cubic tap rounded down to a
+    BANDED_WBLK boundary, clipped so the window stays inside the padded
+    source axis."""
+    r, d = pos.shape
+    lo = pos.reshape(r // group, group, d // dtile, dtile).min((1, 3))
+    blk = jnp.clip(jnp.floor((lo - 2.5) / BANDED_WBLK), 0,
+                   s_pad // BANDED_WBLK - nblk).astype(jnp.int32)
+    return blk * BANDED_WBLK
+
+
+def _banded_pass1(src: jax.Array, pos: jax.Array, method: str, prec,
+                  group: int, nblk: int, dtile: int,
+                  block_rows: int) -> jax.Array:
+    """Horizontal pass: out[n, d, c] = sum_s k(pos[n, d] - s) src[n, s, c]
+    over each block's window only. src (N, S, C), pos (N, D) ->
+    (N_pad, D_pad, C); padded rows and columns carry out-of-range
+    positions, so their outputs are exactly zero."""
+    n, s, c = src.shape
+    d = pos.shape[1]
+    win = nblk * BANDED_WBLK
+    s_pad = _round_up(max(s, win), BANDED_WBLK)
+    d_pad = _round_up(d, dtile)
+    rb = group * max(1, block_rows // group)
+    n_pad = _round_up(n, rb)
+    src = jnp.pad(src, ((0, n_pad - n), (0, s_pad - s), (0, 0)))
+    pos = jnp.pad(pos.astype(jnp.float32), ((0, n_pad - n), (0, d_pad - d)),
+                  constant_values=1e6)
+    starts = _banded_starts(pos, group, nblk, dtile, s_pad)
+    ng, nt = rb // group, d_pad // dtile
+    iota = jnp.arange(win, dtype=jnp.float32)
+
+    def body(i, h):
+        r0 = i * rb
+        blk = jax.lax.dynamic_slice(src, (r0, 0, 0), (rb, s_pad, c))
+        blk = blk.reshape(ng, group, s_pad, c)
+        st = jax.lax.dynamic_slice(starts, (i * ng, 0), (ng, nt))
+        wins = jax.vmap(lambda rows_g, st_g: jax.vmap(
+            lambda s0: jax.lax.dynamic_slice(rows_g, (0, s0, 0),
+                                             (group, win, c)))(st_g))(
+            blk, st)                                # (ng, nt, group, win, C)
+        ps = jax.lax.dynamic_slice(pos, (r0, 0), (rb, d_pad))
+        ps = ps.reshape(ng, group, nt, dtile)
+        offs = st.astype(jnp.float32)[:, None, :, None, None] + iota
+        wts = _kernel_profile(ps[..., None] - offs, method)
+        out = jax.lax.dot_general(                  # (ng, group, nt, dtile, C)
+            wts, wins, (((4,), (3,)), ((0, 1, 2), (0, 2, 1))),
+            precision=prec, preferred_element_type=jnp.float32)
+        return jax.lax.dynamic_update_slice(
+            h, out.reshape(rb, d_pad, c), (r0, 0, 0))
+
+    zero = (pos[0, 0] * 0.0 + src[0, 0, 0] * 0.0).astype(jnp.float32)
+    h0 = jnp.zeros((n_pad, d_pad, c), jnp.float32) + zero
+    return jax.lax.fori_loop(0, n_pad // rb, body, h0)
+
+
+def _banded_pass2(h: jax.Array, pos_t: jax.Array, method: str, prec,
+                  group: int, nblk: int, dtile: int,
+                  block_cols: int) -> jax.Array:
+    """Vertical pass over pass 1's layout: h (S, M, C) with S the
+    contraction (scanline) axis, pos_t (M', D) the per-column fractional
+    scanline positions (M' <= M) -> out (D_pad, M_pad, C)."""
+    s, m, c = h.shape
+    d = pos_t.shape[1]
+    win = nblk * BANDED_WBLK
+    s_pad = _round_up(max(s, win), BANDED_WBLK)
+    d_pad = _round_up(d, dtile)
+    cb = group * max(1, block_cols // group)
+    m_pad = _round_up(m, cb)
+    h = jnp.pad(h, ((0, s_pad - s), (0, m_pad - m), (0, 0)))
+    pos_t = jnp.pad(pos_t.astype(jnp.float32),
+                    ((0, m_pad - pos_t.shape[0]), (0, d_pad - d)),
+                    constant_values=1e6)
+    starts = _banded_starts(pos_t, group, nblk, dtile, s_pad)
+    ng, nt = cb // group, d_pad // dtile
+    iota = jnp.arange(win, dtype=jnp.float32)
+
+    def body(i, out):
+        m0 = i * cb
+        hb = jax.lax.dynamic_slice(h, (0, m0, 0), (s_pad, cb, c))
+        st = jax.lax.dynamic_slice(starts, (i * ng, 0), (ng, nt))
+        wins = jax.vmap(lambda g, st_g: jax.vmap(
+            lambda s0: jax.lax.dynamic_slice(hb, (s0, g * group, 0),
+                                             (win, group, c)))(st_g))(
+            jnp.arange(ng), st)                     # (ng, nt, win, group, C)
+        ps = jax.lax.dynamic_slice(pos_t, (m0, 0), (cb, d_pad))
+        ps = ps.reshape(ng, group, nt, dtile)
+        offs = st.astype(jnp.float32)[:, None, :, None, None] + iota
+        wts = _kernel_profile(ps[..., None] - offs, method)
+        o = jax.lax.dot_general(                    # (ng, group, nt, dtile, C)
+            wts, wins, (((4,), (2,)), ((0, 1, 2), (0, 3, 1))),
+            precision=prec, preferred_element_type=jnp.float32)
+        o = jnp.transpose(o, (2, 3, 0, 1, 4)).reshape(d_pad, cb, c)
+        return jax.lax.dynamic_update_slice(out, o, (0, m0, 0))
+
+    zero = (pos_t[0, 0] * 0.0 + h[0, 0, 0] * 0.0).astype(jnp.float32)
+    out0 = jnp.zeros((d_pad, m_pad, c), jnp.float32) + zero
+    return jax.lax.fori_loop(0, m_pad // cb, body, out0)
+
+
+def banded_two_pass(src_ext: jax.Array, rows: jax.Array,
+                    cstar: jax.Array, method: str, precision: str,
+                    group: int, nblk: int = BANDED_NBLK,
+                    dtile: int = BANDED_DTILE, block_rows_src: int = 64,
+                    block_rows_dst: int = 64) -> jax.Array:
+    """Both scanline passes in banded form: the sampling positions and
+    taps of :func:`_two_pass_core`, but each destination tile contracts
+    one ``nblk`` x 128-sample source window instead of the full axis.
+    src_ext (Ho, Wo, C), rows (Hd, Wd), cstar (Ho, Wd) -> (Hd, Wd, C).
+
+    Feasibility must be checked on the host with :func:`banded_spans_ok`
+    at the same ``group``/``nblk``/``dtile`` (or through
+    :func:`select_warp_backend`). ``group`` scanlines in pass 1 and
+    columns in pass 2 share one window per tile; it changes which
+    samples are gathered together, never the taps. Each loop step of
+    pass 1 (pass 2) contracts ``block_rows_src`` scanlines
+    (``block_rows_dst`` columns), rounded down to a multiple of
+    ``group`` (at least one group), in one batched dot_general; a block
+    as large as the axis makes each pass a single dot_general.
+    ``precision``: a name of ``_PRECISIONS``."""
+    prec = _PRECISIONS[precision]
+    hd, wd = rows.shape
+    h = _banded_pass1(src_ext, cstar, method, prec, group, nblk, dtile,
+                      block_rows_src)
+    out = _banded_pass2(h, jnp.transpose(rows), method, prec, group, nblk,
+                        dtile, block_rows_dst)
+    return out[:hd, :wd]
+
+
 @partial(jax.jit,
          static_argnames=("method", "fill", "has_nodata",
                           "block_rows_src", "block_rows_dst", "precision"))
@@ -1009,13 +1212,14 @@ def warp_two_pass(img: jax.Array, rows: jax.Array, cols: jax.Array,
                   method: str = "cubic", fill: float = NO_DATA_VALUE,
                   has_nodata: Optional[bool] = None,
                   block_rows_src: int = 64, block_rows_dst: int = 64,
-                  precision: str = "high") -> jax.Array:
-    """Generic two-pass scanline warp (no GLT): the MXU counterpart of
+                  precision: str = "highest") -> jax.Array:
+    """Generic two-pass scanline warp (no GLT): the matmul counterpart of
     ``warp_interpolate`` for large reprojections. Per-band nodata is
     renormalised by carrying one validity channel per band through both
     contractions (doubling the contraction width). Requires ``rows`` to
     be monotone along axis 0 per destination column (checked by
-    :func:`resample_to_grid` before routing here)."""
+    :func:`resample_to_grid` before routing here). ``precision`` as in
+    :func:`orthowarp_two_pass`."""
     h, w, b = img.shape
     if has_nodata is None:
         has_nodata = nodata is not None
@@ -1152,7 +1356,7 @@ def resample_to_grid(
 
     sep = separable_index_axes(src_grid, dst_grid)
     if sep is not None and method_eff in ("bilinear", "cubic"):
-        # same-CRS transfers run as two MXU matmuls (identical weights
+        # same-CRS transfers run as two matmuls (identical weights
         # and nodata renormalisation; see separable_resample_matmul)
         Wr = jnp.asarray(separable_weight_matrix(
             sep[0], src_grid.height, method_eff))

@@ -1,7 +1,7 @@
 """EMIT granule -> analysis-ready S2-anchored cube (the ``nc_to_envi``
 equivalent, reference: EMIT_data/emit_proj.py:563-1356).
 
-TPU-native flow per product (DATA / LOC / OBS):
+Device flow per product (DATA / LOC / OBS):
 1. host: open granule (framework HDF5 codec), GLT -> flat indices,
 2. device: one-op GLT gather of the full cube onto the geographic ortho
    grid (no 32-band chunk loop — that was a host-RAM workaround),
@@ -39,7 +39,7 @@ from ..io.xml_sidecar import write_xml_sidecar
 from ..kernels.glt import glt_gather, prepare_glt
 from ..kernels.warp import (
     orthowarp_taploop, orthowarp_two_pass, resample_to_grid,
-    scanline_cstar, source_index_field,
+    scanline_cstar, select_warp_backend, source_index_field,
 )
 from . import products
 
@@ -96,23 +96,21 @@ def _grid_from_s2_tif(s2_tif_path: Union[str, Path]) -> Grid:
 
 @partial(jax.jit, donate_argnums=0,
          static_argnames=("method", "kernel", "row_chunks", "transfer",
-                          "backend", "banded_group"))
+                          "banded_group"))
 def _warp_chunk_update(utm, payload, b0, flat_idx, valid, wr, wc, cstar,
                        method, kernel, row_chunks, transfer,
-                       backend="auto", banded_group=None):
+                       banded_group=None):
     """Dequant + orthowarp one band chunk and write it into the UTM
     accumulator — the fold step of the compute-overlapped ingest (each
     chunk's warp runs while the next chunk is read/quantized/shipped;
     the full raw cube never materializes in HBM). The u16/u12 dequant
-    (bit-unpack + per-band affine) runs INSIDE this program — standalone
-    dequant programs compile at minutes-scale latency on the remote
-    backend (round-2 u12 finding)."""
+    (bit-unpack + per-band affine) runs INSIDE this program, so it fuses
+    with the warp's GLT gather instead of writing an f32 chunk."""
     from ..io.ingest import dequant_slab
     chunk = dequant_slab(payload, transfer, NO_DATA_VALUE)
     if kernel == "two_pass":
         w = orthowarp_two_pass(chunk, flat_idx, valid, wr, wc, cstar,
                                method=method, fill=NO_DATA_VALUE,
-                               backend=backend,
                                banded_group=banded_group)
     else:
         w = orthowarp_taploop(chunk, flat_idx, valid, wr, wc,
@@ -124,11 +122,10 @@ def _warp_chunk_update(utm, payload, b0, flat_idx, valid, wr, wc, cstar,
 
 @partial(jax.jit, donate_argnums=0,
          static_argnames=("method", "kernel", "row_chunks", "transfer",
-                          "backend", "banded_group"))
+                          "banded_group"))
 def _warp_chunk_update_bandmask(utm, payload, b0, flat_idx, valid, wr, wc,
                                 cstar, method, kernel, row_chunks,
-                                transfer, backend="auto",
-                                banded_group=None):
+                                transfer, banded_group=None):
     """Band-masked fold step: the dequantized chunk is [data * vb | vb]
     (2 nb channels, vb the per-band 0/1 validity from the L2A band
     mask). Both halves ride the SAME warp, so dividing the warped
@@ -142,7 +139,6 @@ def _warp_chunk_update_bandmask(utm, payload, b0, flat_idx, valid, wr, wc,
     if kernel == "two_pass":
         w = orthowarp_two_pass(chunk2, flat_idx, valid, wr, wc, cstar,
                                method=method, fill=NO_DATA_VALUE,
-                               backend=backend,
                                banded_group=banded_group)
     else:
         w = orthowarp_taploop(chunk2, flat_idx, valid, wr, wc,
@@ -329,36 +325,10 @@ def orthorectify_granule(
     cstar_np = (scanline_cstar(wr_field, wc_field, g.ortho_grid.height)
                 if use_two_pass else None)
     cstar_j = jnp.asarray(cstar_np) if cstar_np is not None else None
-    warp_backend = cfg.warp_backend
-    banded_group = None
-    if use_two_pass and warp_backend in ("auto", "pallas_banded"):
-        # pick the largest feasible window-sharing group (32 beats 8 by
-        # ~7% at granule scale; curvier geometries degrade to smaller
-        # groups instead of losing the banded path)
-        from ..kernels.pallas_ops import select_banded_group
-        if warp_backend == "pallas_banded" or jax.default_backend() == "tpu":
-            banded_group = select_banded_group(np.asarray(cstar_np),
-                                               np.asarray(wr_field).T)
-        if warp_backend == "auto" and banded_group is not None:
-            warp_backend = "pallas_banded"
-        elif warp_backend == "pallas_banded" and banded_group is None:
-            # Explicitly requested banded kernels on infeasible geometry
-            # (some tile's source span exceeds the 384-sample window):
-            # running them anyway would silently emit nodata tiles.
-            # Fall back to the dense two-pass backend, loudly
-            # (FusedOrthoFusionPlan raises for the same condition; the
-            # pipeline degrades gracefully instead but records it).
-            import warnings
-            warnings.warn(
-                "warp_backend='pallas_banded' requested but the warp "
-                "geometry is infeasible for the banded kernels "
-                "(source span > 384 samples for some destination tile); "
-                "falling back to the dense two-pass XLA backend.",
-                RuntimeWarning, stacklevel=2)
-            warp_backend = "xla"
-            info["out"]["warp_backend_fallback"] = "banded_infeasible"
-    if warp_backend == "pallas_banded" and not use_two_pass:
-        warp_backend = "auto"
+    warp_backend, banded_group = "dense", None
+    if use_two_pass:
+        warp_backend, banded_group = select_warp_backend(
+            cstar_np, wr_field, cfg.warp_backend)
     info["out"]["warp_backend"] = warp_backend
     if banded_group is not None:
         info["out"]["banded_group"] = int(banded_group)
@@ -381,8 +351,7 @@ def orthorectify_granule(
             utm_dev = orthowarp_two_pass(
                 jnp.asarray(cube_raw, jnp.float32), flat_j, va,
                 wr_j, wc_j, cstar_j, method=cfg.resampling,
-                fill=NO_DATA_VALUE, backend=warp_backend,
-                banded_group=banded_group)
+                fill=NO_DATA_VALUE, banded_group=banded_group)
             timer.record(f"{kind}_two_pass_orthowarp", t,
                          shape=list(utm_dev.shape),
                          resampling=cfg.resampling)
@@ -511,7 +480,7 @@ def orthorectify_granule(
                     utm, payload, b0, flat_j, data_valid_j, wr_j, wc_j,
                     cstar_arg, cfg.resampling, kernel,
                     cfg.orthowarp_row_chunks, cfg.ingest_transfer,
-                    warp_backend, banded_group)
+                    banded_group)
 
             utm_pre = stream_cube_fold(
                 read2, (g.raw_height, g.raw_width, n_chunks * 2 * cb),
@@ -549,7 +518,7 @@ def orthorectify_granule(
                     utm, payload, b0, flat_j, data_valid_j, wr_j, wc_j,
                     cstar_arg, cfg.resampling, kernel,
                     cfg.orthowarp_row_chunks, cfg.ingest_transfer,
-                    warp_backend, banded_group)
+                    banded_group)
 
             utm_pre = stream_cube_fold(
                 read_bands, (g.raw_height, g.raw_width, g.n_bands),

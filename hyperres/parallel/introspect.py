@@ -2,12 +2,10 @@
 
 Extracts the collective operations (all-reduce / all-gather /
 collective-permute / reduce-scatter) and their output bytes from a
-jitted program's compiled HLO — the traffic that rides the ICI links
-on a real multi-chip mesh. This is the measurement backing the
-multi-device cost tables and the real-chip scaling projection in
-docs/BENCHMARK.md (the virtual-CPU mesh proves correctness and
-partitioning cost; the byte counts bound the communication term that
-virtual devices cannot time). `scripts/bench_multichip_scaling.py`
+jitted program's compiled HLO — the traffic that rides the device
+interconnect (NVLink between GPUs) on a real multi-device mesh. The
+virtual-CPU mesh proves correctness and partitioning cost; the byte
+counts bound the communication term that virtual devices cannot time. `scripts/bench_multichip_scaling.py`
 uses the same extraction inline (it must run standalone pre-JAX-init).
 """
 

@@ -1,7 +1,7 @@
 """Device meshes and sharding helpers.
 
 The reference has no distributed execution at all (SURVEY.md section
-2.8); here parallelism is expressed the TPU way: a ``jax.sharding.Mesh``
+2.8); here parallelism is expressed the JAX way: a ``jax.sharding.Mesh``
 + named shardings, with XLA inserting the collectives. The natural axes
 for this workload:
 - ``data`` — tiles / scenes / pixel batches (embarrassingly parallel

@@ -27,6 +27,7 @@ from jax import shard_map
 
 from ..fusion.ridge_sr import RidgeSpectralSR, RidgeSRParams
 from ..kernels.lstsq import logit
+from ..kernels.warp import _PRECISIONS
 
 
 # ---------------------------------------------------------------------------
@@ -257,9 +258,7 @@ def _sharded_two_pass_build(glt_flat_idx, rows, mesh: Mesh, axis: str,
                 f"outside its halo window "
                 f"[{i * ho_l - halo}, {(i + 1) * ho_l + halo}]; "
                 f"increase halo")
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT}[precision]
+    prec = _PRECISIONS[precision]
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(), P(axis), P(axis), P(axis), P(axis), P(axis)),
@@ -309,7 +308,7 @@ def sharded_orthowarp_two_pass(raw, glt_flat_idx, glt_valid, rows, cols,
                                cstar, mesh: Mesh, axis: str = "data",
                                method: str = "cubic",
                                fill: float = -9999.0, halo: int = 32,
-                               precision: str = "high"):
+                               precision: str = "highest"):
     """Multi-chip two-pass scanline ortho-warp.
 
     SPMD decomposition: pass 1 (horizontal, per source scanline) is
@@ -337,7 +336,7 @@ def sharded_streamed_orthowarp(read_bands, shape_hwb, glt_flat_idx,
                                glt_valid, rows, cols, cstar, mesh: Mesh,
                                axis: str = "data", method: str = "cubic",
                                fill: float = -9999.0, halo: int = 32,
-                               precision: str = "high",
+                               precision: str = "highest",
                                transfer: str = "u16",
                                chunk_bands: int = 8, depth: int = 2):
     """The PRODUCTION streamed ingest fold under a device mesh: the UTM
@@ -385,8 +384,7 @@ def sharded_streamed_orthowarp(read_bands, shape_hwb, glt_flat_idx,
 # ---------------------------------------------------------------------------
 
 def sharded_sr_predict_u16(model: RidgeSpectralSR, X, valid, mesh: Mesh,
-                           axis: str = "data",
-                           engine: str = "xla"):
+                           axis: str = "data"):
     """Row-sharded granule-scale SR inference: each chip runs the
     fused predict program (standardise -> monomial expansion -> ridge
     matmul -> sigmoid -> u16 quantize) on its pixel shard; no
@@ -395,14 +393,10 @@ def sharded_sr_predict_u16(model: RidgeSpectralSR, X, valid, mesh: Mesh,
     production serving.
 
     X (N, Bx) f32 (finite), valid (N,) bool; N must divide the mesh
-    axis size. ``engine``: "xla" expands/matmuls the whole shard in one
-    shot; "pallas" the fused VMEM kernel — note that the row-major
-    Pallas form materialises (shard_N, Bx) 128-lane-padded (12.8x
-    bytes), so it is only appropriate for shards well under HBM scale;
-    the single-chip granule product path uses the channel-major kernel
-    instead (see ridge_sr.predict_cube_u16). Returns (N, By) uint16
-    (65535 = nodata).
+    axis size. Returns (N, By) uint16 (65535 = nodata).
     """
+    from ..kernels.lstsq import sigmoid
+
     assert model.params is not None, "fit() first"
     p = model.params
     n = X.shape[0]
@@ -411,35 +405,20 @@ def sharded_sr_predict_u16(model: RidgeSpectralSR, X, valid, mesh: Mesh,
         raise ValueError(f"N={n} must divide the '{axis}' axis "
                          f"({n_dev}) — pad the pixel rows first")
 
-    if engine == "pallas":
-        from ..kernels.lstsq import poly_selector_matrices
-        from ..kernels.pallas_ops import pallas_sr_predict_u16
-        sels, f = poly_selector_matrices(
-            model.n_inputs, model.cfg.degree, model.cfg.include_bias)
-        sels_j = tuple(jnp.asarray(sm) for sm in sels)
+    def local(X_s, v_s):
+        # one-shot per shard (a shard is already 1/n_dev of the cube;
+        # fori-batching inside shard_map trips the varying-manual-axes
+        # carry check) — the exact _predict_quant_batches math, at the
+        # same HIGHEST precision
+        z = jnp.dot(model.expand((X_s - p.x_mean) / p.x_std), p.W,
+                    preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST) + p.intercept
+        q = jnp.clip(jnp.rint(sigmoid(z) * 10000.0), 0.0,
+                     65534.0).astype(jnp.uint16)
+        return jnp.where(v_s[:, None], q, jnp.uint16(65535))
 
-        def local(X_s, v_s):
-            return pallas_sr_predict_u16(X_s, v_s, p.x_mean, p.x_std,
-                                         sels_j, p.W, p.intercept)
-    else:
-        from ..kernels.lstsq import sigmoid
-
-        def local(X_s, v_s):
-            # one-shot per shard (a shard is already 1/n_dev of the
-            # cube; fori-batching inside shard_map trips the
-            # varying-manual-axes carry check) — the exact
-            # _predict_quant_batches math
-            z = (model.expand((X_s - p.x_mean) / p.x_std) @ p.W
-                 + p.intercept)
-            q = jnp.clip(jnp.rint(sigmoid(z) * 10000.0), 0.0,
-                         65534.0).astype(jnp.uint16)
-            return jnp.where(v_s[:, None], q, jnp.uint16(65535))
-
-    # check_vma=False: pallas_call's out_shape carries no varying-axes
-    # metadata, which the vma checker (JAX >= 0.9) rejects inside
-    # shard_map; the out_specs already state the sharding explicitly
     run = shard_map(local, mesh=mesh, in_specs=(P(axis), P(axis)),
-                    out_specs=P(axis), check_vma=False)
+                    out_specs=P(axis))
     return run(jnp.asarray(X, jnp.float32), jnp.asarray(valid))
 
 
@@ -453,7 +432,7 @@ def sharded_orthowarp_srf_2d(raw, glt_flat_idx, glt_valid, rows, cols,
                              band_axis: str = "band",
                              method: str = "cubic",
                              fill: float = -9999.0, halo: int = 32,
-                             precision: str = "high"):
+                             precision: str = "highest"):
     """GLT ortho-warp + SRF band synthesis on a 2-D (row x band) mesh —
     proof that the framework's two production shardings COMPOSE: the
     spatial decomposition of :func:`sharded_orthowarp_two_pass`
@@ -499,9 +478,7 @@ def sharded_orthowarp_srf_2d(raw, glt_flat_idx, glt_valid, rows, cols,
             raise ValueError(
                 f"destination shard {i} needs scanlines [{lo}, {hi}] "
                 f"outside its halo window; increase halo")
-    prec = {"highest": jax.lax.Precision.HIGHEST,
-            "high": jax.lax.Precision.HIGH,
-            "default": jax.lax.Precision.DEFAULT}[precision]
+    prec = _PRECISIONS[precision]
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(None, None, band_axis), P(row_axis),

@@ -11,7 +11,7 @@ Reference semantics (tiles_helpers/utils.py):
   tiled DEFLATE GeoTIFFs, tags/descriptions preserved (:308-440);
 - ``write_emit_b32_tile`` — evenly subsampled 32-band tile (:444-491).
 
-TPU-native reformulation: the double window loop becomes ONE device
+Device reformulation: the double window loop becomes ONE device
 program — compute the black mask over the full raster, block-reduce it
 to per-tile black fractions for EMIT and S2 simultaneously, and read the
 (few) accepted windows afterwards. No per-tile host round trips.

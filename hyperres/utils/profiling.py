@@ -3,7 +3,7 @@
 The reference's only observability is print breadcrumbs + tqdm
 (SURVEY.md section 5); here every pipeline records a structured
 stage-timing ledger, and these helpers add (a) a reusable timer and
-(b) a jax.profiler trace context for TPU timeline capture
+(b) a jax.profiler trace context for device timeline capture
 (enable with HYPERRES_PROFILE_DIR=/path or the context manager).
 """
 

@@ -7,7 +7,7 @@ and the reference-semantics exact path side by side on the same inputs
 and writes a markdown + JSON report:
 
   1. reader -> GLT ortho onto the S2-anchored UTM grid, twice:
-     - shipped: two-pass scanline warp (banded Pallas on TPU)
+     - shipped: two-pass scanline warp (banded where feasible)
      - exact:   taploop warp (gdalwarp-semantics gathers,
                  emit_proj.py:876-940 / nc_to_envi :563-1300)
      -> cube PSNR / SAM / valid-mask agreement between the two.
@@ -133,7 +133,7 @@ def verify_granule(
     cube_a = _cube_of(res_a)
     cube_b = _cube_of(res_b)
     metrics["ortho_shipped_backend"] = res_a.info["out"].get(
-        "warp_backend", "two_pass")
+        "warp_backend", "dense")
     metrics["cube_shipped_vs_exact"] = _cube_metrics(cube_a, cube_b)
 
     # --- stage 2: fusion, shipped vs exact ---
@@ -221,7 +221,7 @@ def verify_granule(
         "",
         f"- pipeline PSNR {pa['psnr_db']} dB / SAM {pa['sam_rad']} rad",
         f"- method PSNR {ma['psnr_db']} dB (entropic-OT shrinkage "
-        "included; ~33 dB expected, see docs/BENCHMARK.md)",
+        "included; ~33 dB expected, see PERF.md)",
         "",
         "## Gates",
         "",

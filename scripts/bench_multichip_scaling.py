@@ -10,20 +10,22 @@ orthowarp, the data-parallel ridge training step, and (n >= 4) the
   constant work on this single-core host),
 - COLLECTIVE BYTES per step, extracted from the compiled HLO
   (all-reduce / all-gather / collective-permute / reduce-scatter
-  output bytes summed) — the structural cost that WOULD ride the ICI
-  on real hardware.
+  output bytes summed) — the structural cost that would ride the
+  device interconnect (NVLink between GPUs) on real hardware.
 
-Read the result for what this environment can measure: the driver
-provides one real TPU chip, and this host exposes a single CPU core, so
-virtual devices add no compute — the curve isolates the COST of the SPMD
-decomposition (partitioning + halo exchange + psum) at constant work.
+Read the result for what it measures: virtual CPU devices share the
+host's cores and add no compute, so the curve isolates the COST of the
+SPMD decomposition (partitioning + halo exchange + psum) at constant
+work. It is not a device measurement: ``chip_smoke.py --devices 4`` runs
+the same programs on four GPUs.
 Flat time across mesh sizes means the decomposition itself is cheap and
 real multi-chip speedup is bounded by hardware, not by the program
 structure. Correctness of the decompositions is covered by
 tests/test_tiling_parallel.py and the driver dryrun.
 
-Each mesh size runs in a fresh subprocess (the JAX backend must be
-configured before first device touch).
+Each mesh size runs in a fresh subprocess pinned to
+``JAX_PLATFORMS=cpu`` (the virtual device count must be configured
+before the backend starts), so no child ever opens a GPU.
 
 Usage: python scripts/bench_multichip_scaling.py [--json out.json]
 """

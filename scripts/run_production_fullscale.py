@@ -1,14 +1,19 @@
-"""Full-scale production-path run on the TPU: real granule-sized scene
-written to disk, then the complete run_pair_pipeline with all file
-products (ENVI cube, GeoTIFFs, tiles, report)."""
+"""Full-scale production-path run on the device: real granule-sized
+scene written to disk, then the complete run_pair_pipeline with all
+file products (ENVI cube, GeoTIFFs, tiles, report).
+
+Usage: python scripts/run_production_fullscale.py [OUT_DIR]
+(default: hyperres_prod_run under the temp directory)."""
 
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 
 def main():
-    out = Path(sys.argv[1] if len(sys.argv) > 1 else "/tmp/prod_run")
+    out = Path(sys.argv[1] if len(sys.argv) > 1
+               else Path(tempfile.gettempdir()) / "hyperres_prod_run")
     from hyperres.core.config import TilingConfig
     from hyperres.pipeline import run_pair_pipeline
     from hyperres.testing.scenes import make_scene

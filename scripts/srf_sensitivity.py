@@ -11,7 +11,7 @@ parametric-vs-measured divergence bounds (band centre +-2 nm, FWHM
   2. the FULL OT+poly fusion (the shipped product),
 
 and report worst-case deltas. Writes the table that docs/PARITY.md
-cites. Runs on CPU (does not claim the TPU).
+cites. Runs on the CPU.
 
 Usage: python scripts/srf_sensitivity.py [--h60 96] [--w60 128]
 """

@@ -1,7 +1,5 @@
-"""Pin the compiled-HLO collective-byte extraction that backs the
-multi-device cost tables and the real-chip ICI projection in
-docs/BENCHMARK.md (round-4 verdict: publish the projection AND a test
-pinning the extraction)."""
+"""Pin the compiled-HLO collective-byte extraction that bounds the
+communication term of the multi-device programs."""
 
 import jax
 import jax.numpy as jnp

@@ -108,30 +108,25 @@ def test_sample_valid_pixels_device_weights(rng):
         assert (np.abs(valid_vals - row).sum(1) < 1e-6).any()
 
 
-def test_sample_valid_pixels_device_approx(rng):
-    """The approx (TPU bucketed top-k) selection path obeys the same
-    contract: weighted rows are genuine distinct valid pixels, padding
-    slots carry zero weight."""
+def test_sample_valid_pixels_device_is_exact_top_k(rng):
+    """The device sampler is exact Gumbel top-k: its picks are the
+    lax.top_k of the masked Gumbel scores drawn from the same key."""
     from hyperres.fusion.sampling import sample_valid_pixels_device
     import jax
-    img = rng.random((40, 40, 3)).astype(np.float32)
-    mask = rng.random((40, 40)) > 0.5
-    take, w = sample_valid_pixels_device(
-        jnp.asarray(img), jnp.asarray(mask), 64, jax.random.PRNGKey(1),
-        method="approx")
-    take = np.asarray(take)
-    w = np.asarray(w)
-    assert take.shape == (64, 3)
-    picked = take[w > 0]
-    assert picked.shape[0] >= 32  # recall >= 0.5 of a 64-sample budget
-    valid_vals = img[mask]
-    seen = set()
-    for row in picked:
-        d = np.abs(valid_vals - row).sum(1)
-        j = int(np.argmin(d))
-        assert d[j] < 1e-6
-        assert j not in seen  # without replacement
-        seen.add(j)
+    img = rng.random((30, 30, 3)).astype(np.float32)
+    mask = rng.random((30, 30)) > 0.4
+    key = jax.random.PRNGKey(3)
+    take, w = sample_valid_pixels_device(jnp.asarray(img),
+                                         jnp.asarray(mask), 40, key)
+    g = jax.random.gumbel(key, (900,))
+    score = jnp.where(jnp.asarray(mask.reshape(-1)), g, -jnp.inf)
+    _, idx = jax.lax.top_k(score, 40)
+    np.testing.assert_array_equal(np.asarray(take),
+                                  img.reshape(-1, 3)[np.asarray(idx)])
+    assert float(w.sum()) == 40.0
+    with pytest.raises(TypeError):
+        sample_valid_pixels_device(jnp.asarray(img), jnp.asarray(mask),
+                                   40, key, method="approx")
 
 
 def test_make_grid_template(tmp_path, rng):

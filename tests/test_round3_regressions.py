@@ -229,41 +229,10 @@ def test_predict_cube_u16_matches_host_path(rng):
     d = np.abs(q_dev.astype(np.int32) - q_ref.astype(np.int32))
     assert d.max() <= 1  # f32 sigmoid rounding at the quantization edge
 
-    # the fused Pallas kernel engine (interpret on CPU): expansion via
-    # one-hot selection matmuls must reproduce the gather-based path
-    q_pal = model.predict_cube_u16(cube, nodata=-9999.0,
-                                   engine="pallas")
-    np.testing.assert_array_equal(q_pal == 65535, q_ref == 65535)
-    dp = np.abs(q_pal.astype(np.int32) - q_ref.astype(np.int32))
-    assert dp.max() <= 1
-
-
-def test_sr_pallas_kernel_production_shape(rng):
-    """The fused SR kernel at the production model shape (degree 3,
-    10 -> 32 bands, F = 285) matches the XLA engine."""
-    from hyperres.core.config import RidgeSRConfig
-    from hyperres.fusion import RidgeSpectralSR
-
-    bx, by = 10, 32
-    X = rng.random((6000, bx)).astype(np.float32)
-    Y = np.clip(0.1 + 0.6 * X[:, 2:3] + 0.1 * rng.random((6000, by)),
-                0.01, 0.99).astype(np.float32)
-    model = RidgeSpectralSR(bx, by, RidgeSRConfig(degree=3,
-                                                  batch_pixels=1024))
-    model.fit(X, Y)
-    assert model.n_features == 285
-    cube = rng.random((bx, 23, 31)).astype(np.float32)
-    cube[:, 5, 7] = np.nan
-    q_x = model.predict_cube_u16(cube, engine="xla")
-    q_p = model.predict_cube_u16(cube, engine="pallas")
-    np.testing.assert_array_equal(q_x == 65535, q_p == 65535)
-    d = np.abs(q_x.astype(np.int32) - q_p.astype(np.int32))
-    assert d.max() <= 1
-
 
 def test_fused_plan_pallas_banded_matches_xla(tmp_path):
-    """FusedOrthoFusionPlan(warp_kernel='pallas_banded') reproduces the
-    XLA two-pass plan (interpret-mode Pallas on CPU)."""
+    """FusedOrthoFusionPlan(warp_kernel='banded') reproduces the dense
+    two-pass plan."""
     from hyperres.core.grid import s2_anchored_target_grid
     from hyperres.fusion.fused import FusedOrthoFusionPlan
     from hyperres.io.granule import EmitGranule
@@ -283,9 +252,9 @@ def test_fused_plan_pallas_banded_matches_xla(tmp_path):
         nodata = t.nodata
     kw = dict(s2_nodata=nodata, s2_scale=1e-4)
     plan_x = FusedOrthoFusionPlan(*args, warp_kernel="two_pass", **kw)
-    plan_b = FusedOrthoFusionPlan(*args, warp_kernel="pallas_banded",
-                                  **kw)
-    assert plan_b.warp_statics.backend == "pallas_banded"
+    plan_b = FusedOrthoFusionPlan(*args, warp_kernel="banded", **kw)
+    assert plan_x.warp_statics.backend == "dense"
+    assert plan_b.warp_statics.backend == "banded"
     a = plan_x(raw, plan_x.prepare_s2(stack))
     b = plan_b(raw, plan_b.prepare_s2(stack))
     va = np.isfinite(np.asarray(a["fused_10m"])).all(-1)

@@ -279,47 +279,6 @@ def test_generic_two_pass_no_nodata_matches_gather(rng):
     assert np.percentile(np.abs(got - want)[both], 90) < 1e-4
 
 
-def test_two_pass_pallas_backend_matches_xla(rng):
-    """backend="pallas" (weight tiles generated in VMEM) matches the XLA
-    einsum backend; ill-conditioned renormalisation pixels (|den|~eps)
-    are compared relatively."""
-    from hyperres.kernels.glt import prepare_glt
-
-    raw = rng.random((30, 35, 9)).astype(np.float32)
-    ho, wo = 40, 44
-    glt = np.zeros((ho, wo, 2), dtype=np.int32)
-    valid = rng.random((ho, wo)) > 0.25
-    glt[..., 0] = np.where(valid, rng.integers(1, 36, (ho, wo)), 0)
-    glt[..., 1] = np.where(valid, rng.integers(1, 31, (ho, wo)), 0)
-    flat_idx, vmask = prepare_glt(glt, (30, 35))
-    r1 = np.sort(rng.uniform(-1, ho, 50)).astype(np.float32)
-    c1 = np.sort(rng.uniform(-1, wo, 52)).astype(np.float32)
-    rows = (np.broadcast_to(r1[:, None], (50, 52))
-            + 0.01 * np.arange(52, dtype=np.float32)[None, :]).copy()
-    cols = np.broadcast_to(c1[None, :], (50, 52)).copy()
-    cstar = kw.scanline_cstar(rows, cols, ho)
-    args = [jnp.asarray(a) for a in (raw, flat_idx, vmask, rows, cols,
-                                     cstar)]
-    # precision pinned to "highest" on both: this is a backend-
-    # equivalence test, and "high" is now a REAL bf16x3 split in the
-    # Pallas kernels while CPU XLA ignores Precision (full f32), so the
-    # two "high" paths differ legitimately near small renormalisation
-    # denominators (error-bound coverage for "high":
-    # test_pallas_ops.test_banded_high_precision_3pass)
-    a = np.asarray(kw.orthowarp_two_pass(*args, method="cubic",
-                                         block_rows_src=16,
-                                         block_rows_dst=16,
-                                         precision="highest"))
-    b = np.asarray(kw.orthowarp_two_pass(*args, method="cubic",
-                                         backend="pallas",
-                                         precision="highest"))
-    assert ((a == -9999.0) == (b == -9999.0)).all()
-    vm = a != -9999.0
-    rel = np.abs(a - b) / (np.abs(a) + 1.0)
-    assert rel[vm].max() < 1e-3
-    assert np.percentile(np.abs(a - b)[vm], 99) < 1e-5
-
-
 # ---------------------------------------------------------------------------
 # Integer-aligned separable fast paths (round 3): pad/reshape block-sum
 # average and phase-cycled lerp bilinear vs the weight-matrix matmuls
